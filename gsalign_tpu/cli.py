@@ -18,7 +18,7 @@ from gsalign_tpu.config import AlignConfig
 
 def show_usage(prog: str, cfg: AlignConfig):
     print(f"""
-GSAlign-TPU (jax) v0.1
+GSAlign (jax) v0.1
 Usage: {prog} [-i IndexFile Prefix / -r Reference file] -q QueryFile[Fasta]
 
 Options: -t     INT     number of threads [{cfg.thread_num}]

@@ -14,7 +14,7 @@ import dataclasses
 @dataclasses.dataclass(frozen=True)
 class AlignConfig:
     # --- CLI-exposed knobs (reference src/main.cpp:203-215) ---
-    thread_num: int = 8                 # -t   (host-side parallel I/O only on TPU)
+    thread_num: int = 8                 # -t   (host-side threads only)
     min_seed_length: int = 15           # -slen (10..30)
     min_aln_block_score: int = 200      # -clr  (cluster size floor)
     min_aln_length: int = 200           # -alen
@@ -48,17 +48,11 @@ class AlignConfig:
     # block dedup containment threshold (src/GSAlign.cpp:457-462)
     dup_overlap_frac: float = 0.9
 
-    # --- TPU execution knobs (new; no reference equivalent) ---
+    # --- device execution knobs (new; no reference equivalent) ---
     sa_sample_interval: int = 8         # sampled-SA stride (reference fixes 32)
     seed_lane_chunk: int = 10000        # lane width for batched seeding
     dp_buckets: tuple = (64, 128, 256, 512, 1024, 2048, 5120)
     dp_batch_cells: int = 1 << 26       # target cells per DP kernel launch
-    # Pallas fused DP kernel (ops/dp_pallas.py): hardware-parity-verified,
-    # 1.3-2.1x the lax.scan path on a v5e incl. traceback (4.3 vs 2.9
-    # Gcells/s at [2048x128x128], 12.6 vs 6.1 at L=256; round-3 honest
-    # block_until_ready timing). Probe-gated: falls back to the scan path
-    # when the toolchain can't build the kernel.
-    use_pallas: bool = True
 
     def effective(self) -> "AlignConfig":
         """Apply -sen implications (reference src/main.cpp:272-277,323)."""

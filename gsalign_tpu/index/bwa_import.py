@@ -9,12 +9,12 @@ bases stay as the random bases baked into the .pac at build time (the
 reference never restores N from .amb into its in-RAM text, so neither do
 we — alignments over such an index are byte-identical to the reference's).
 The .ann/.amb text metadata supply the chromosome table and holes
-(bns_restore_core, /root/reference/src/bwt_index.cpp:37-90; written by
+(bns_restore_core, src/bwt_index.cpp:37-90; written by
 bns_dump, src/BWT_Index/bntseq.c:59-89).
 
 Our rank tables are then rebuilt from the text (build_fmindex): the
 reference's interleaved-occ .bwt and every-32nd .sa sampling
-(src/bwt_index.cpp:102-145) don't map onto the TPU union/order-3/comb
+(src/bwt_index.cpp:102-145) don't map onto the device union/order-3/comb
 layout, and rebuilding is cheap next to shipping a FASTA around. The .bwt
 header's primary/L2 values are cross-checked against the rebuilt index as
 an integrity test when the file is present.

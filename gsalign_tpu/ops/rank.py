@@ -4,7 +4,7 @@ The reference answers one rank query at a time with popcount over an
 interleaved BWT (src/bwt_search.cpp:45-119). Here a query is a lane of a
 [B]-vector: checkpoint gather + vectorized 2-bit-field equality + popcount
 over the 8 words of one 128-base block, so thousands of FM extensions step
-together through the index — that is the whole design point of the TPU port.
+together through the index — that is the whole design point of the port.
 
 Rank-space integers are int32 below seq_len 2^31 and int64 above (the
 "wide" layout: u32 low checkpoints + 2-bit carries, matching the
@@ -28,19 +28,16 @@ T3_ROW_WIDE = 100  # wide fused rows: 64 cp-low + 4 carry words + 32 syms
 # comb_pairs layout offsets (see the field's docstring)
 INIT_OFF = 65536 + 136                 # narrow packed: INIT starts-pair rows
 INIT_OFF_WIDE = 2 * (65536 + 136)      # wide flattened: INIT starts plane
-# SA placement history: round 3 kept the SA riding the comb gather below
-# 1.5 GB because the Pallas per-row DMA alternative measured slower
-# (~1.7 us per entering lane). Round 4 removed the dilemma: entry lanes
-# compact into K slots and ONE plain XLA gather on the standalone sa_rows
-# plane resolves them (seeding sa_mode "xlak") — the O(n) SA plane leaves
-# the per-iteration gather entirely.
+# SA placement: direct-mode lanes resolve their occurrence with ONE plain
+# XLA gather on the standalone sa_rows plane, so the O(n) SA plane never
+# rides the per-iteration comb gather.
 # INIT jump order is scale-dependent: order 10 (4 MB plane) below this
 # seq_len, order 12 (67 MB plane) above. Every scan iteration sweeps the
 # whole plane (XLA gather cost model), so small genomes want the small
 # plane; large genomes want the longer jump — at 200 Mb a 10-mer averages
 # ~200 occurrences vs ~12 for a 12-mer, and the extra triple steps to
-# uniqueness cost more iterations than the 63 MB/iteration sweep saves
-# (measured: 100 Mb seed 3.24 s order-12 vs 4.14 s order-10).
+# uniqueness cost more iterations than the 63 MB/iteration sweep saves.
+# The crossover on the GPU is not measured.
 INIT12_MIN_SEQLEN = 64 * 2 ** 20
 
 
@@ -83,7 +80,7 @@ class DeviceFMIndex:
     # ONE gather with ONE per-lane index serves every scan class (the
     # previous flattened layout needed 2B indices/iteration for the lo
     # and sz planes, and gather cost is per-index latency-bound at large
-    # B; a [M, 2] table is not an option — TPU pads minor dims to 128):
+    # B; a [M, 2] table would pad its minor dim in the device layout):
     #  rows      0..65535   INIT-8   (c8lo[g], c8sz[g])
     #  rows  65536..65599   triple INIT  (C64[g], C64[g+1]-C64[g])
     #  rows  65600..65603   single INIT by base c (L2[3-c]+1, L2[c+1]-L2[c])
@@ -108,17 +105,16 @@ class DeviceFMIndex:
     # Overlapping 512-base windows of the packed fwd+RC text at stride 256:
     # row r = words [16r, 16r+32). Direct-extension seeding (unique-interval
     # lanes compare text to query 256 bases per gather) reads these; a [1,1]
-    # dummy when direct mode is off (sampled SA / wide). NB: slice gathers
-    # at arbitrary word offsets from a flat array were measured ~30x SLOWER
-    # than aligned row gathers — keep the duplicated-row layout.
+    # dummy when direct mode is off (sampled SA / wide). Aligned row
+    # gathers from this duplicated-row layout replace slice gathers at
+    # arbitrary word offsets from a flat array.
     text_rows: jnp.ndarray    # uint32 [ceil(2N/1024), 128] | [1, 1]
     # Large direct indexes move the full SA OUT of comb_pairs (sa_in_comb
-    # False) into this standalone int32 table (1024-padded for the Pallas
-    # masked per-row gather): riding along in comb made EVERY scan
-    # iteration sweep the whole SA plane (~800 MB at 100 Mb scale), while
-    # only the handful of lanes entering direct mode need a row. [1] dummy
-    # when the SA stays in comb (small genomes) or direct mode is off.
-    sa_rows: jnp.ndarray      # int32 [pad1024(seq_len+1)] | [1]
+    # False) into this standalone int32 table: riding along in comb made
+    # EVERY scan iteration gather from the whole SA plane (~800 MB at
+    # 100 Mb scale), while only the handful of lanes entering direct mode
+    # need a row. [1] dummy when direct mode is off.
+    sa_rows: jnp.ndarray      # int32 [seq_len+1] | [1]
     seq_len: int
     primary: int
     sa_intv: int
@@ -194,12 +190,8 @@ class DeviceFMIndex:
             text = fm.genome.codes_fwd_rc()
             n_rows_t = -(-fm.seq_len // 256)
             # four 512-base windows (own 16 words + 256-base lookahead)
-            # per table row: the minor dim is then exactly one 128-lane
-            # tile, so XLA keeps the table row-major with zero padding
-            # and the scan's per-row gather reads ONE contiguous 512 B
-            # line — at [*, 32] XLA chose a transposed layout (to dodge
-            # 32->128 tile padding) and the gather cost 141 us/iter vs
-            # ~60 for the equal-byte q_rows gather (250 Mb trace)
+            # per table row: the scan's per-row gather then reads ONE
+            # contiguous 512 B line of a row-major table
             n4 = -(-n_rows_t // 4)
             padded = np.zeros((n4 * 4 + 1) * 256, dtype=np.uint8)
             padded[:fm.seq_len] = text
@@ -256,8 +248,7 @@ class DeviceFMIndex:
         sa_in_comb = False
         if direct_ok:
             sa_field = np.zeros(1, dtype=np.int32)
-            from gsalign_tpu.ops.gather_pallas import pad_table
-            sa_rows = pad_table(fm.sa_samples, dtype=np.int32)
+            sa_rows = np.ascontiguousarray(fm.sa_samples, dtype=np.int32)
         else:
             sa_field = fm.sa_samples
             sa_rows = np.zeros(1, dtype=np.int32)

@@ -4,7 +4,7 @@ The reference is strictly single-node (pthreads + one mutex,
 src/GSAlign.cpp:8,492-526); this module supplies the multi-host dimension:
 query chromosomes are partitioned round-robin across JAX processes, each
 host runs the full per-chromosome pipeline on its own local device mesh
-(ICI parallelism via parallel/mesh.py), and host 0 merges the per-
+(device parallelism via parallel/mesh.py), and host 0 merges the per-
 chromosome output shards deterministically — the merged MAF/ALN/VCF are
 byte-identical to a single-host run for any process count.
 

@@ -1,7 +1,7 @@
 """Multi-chip data parallelism.
 
 The reference has no distributed code (pthreads + one mutex,
-src/GSAlign.cpp:8,492-526); this module supplies that dimension TPU-natively:
+src/GSAlign.cpp:8,492-526); this module supplies that dimension on the device:
 one mesh axis "frag" shards the two batched device stages — the seeding
 lane axis (query chunks) and the DP problem axis — while the FM-index arrays
 stay replicated (a 2-bit fwd+RC human genome is ~1.5 GB, well under per-chip
@@ -56,9 +56,9 @@ def shard_index_rows(dfm: DeviceFMIndex, mesh: Mesh) -> DeviceFMIndex:
     The seed scan and resolve_sa then run with lanes REPLICATED and every
     table fetch as local-masked-gather + psum (rank._t3_row_fetch): this
     trades lane-parallel speedup for CAPACITY, which is the point — the
-    6.2 G-row (3 Gb pair) wide tables are ~19.4 GB t3 + ~6.2 GB SA,
-    over one v5e's 16 GB HBM but comfortable across >= 4 chips
-    (~4.9 + 1.6 GB per chip at 4, plus the ~1.6 GB replicated planes).
+    6.2 G-row (3 Gb pair) wide tables are ~19.4 GB t3 + ~6.2 GB SA
+    (~4.9 + 1.6 GB per device at 4, plus the ~1.6 GB replicated planes);
+    an index beyond one card's memory needs this mode.
     Use seeding.find_seeds_all(..., mesh=mesh, index_sharded=True).
     """
     import dataclasses

@@ -28,7 +28,7 @@ from gsalign_tpu.pipeline import blocks as blk_ops
 from gsalign_tpu.pipeline import chain
 from gsalign_tpu.ops import dp as dp_ops
 from gsalign_tpu.pipeline.generate import (finish_alignments,
-                                           plan_alignments, select_dp_fn)
+                                           plan_alignments)
 from gsalign_tpu.pipeline.output import write_aln, write_dotplot, write_maf
 from gsalign_tpu.pipeline.variants import (VariantCollector,
                                            identify_variants, write_vcf)
@@ -188,7 +188,7 @@ def compare_genomes(fm: FMIndex,
     # DP compute).
     aligner = dp_ops.FragmentAligner(
         bucket_sizes=cfg.dp_buckets, batch_cells=cfg.dp_batch_cells,
-        dp_fn=select_dp_fn(cfg, dp_fn), mesh=mesh)
+        dp_fn=dp_fn, mesh=mesh)
     planned = []                   # (qname, qry_chars, blocks, jobs, lo, hi)
     for qc_idx, (qname, qry_chars) in enumerate(query_records):
         log(f"\tProcess query chromosome: {qname}...", verbose)

@@ -76,16 +76,6 @@ def pair_rows(blk: Block, j: int, qry_chars: np.ndarray,
     return (ref_chars[r_pos:r_pos + r_len], qry_chars[q_pos:q_pos + q_len])
 
 
-def select_dp_fn(cfg: AlignConfig, dp_fn=None):
-    """Resolve the DP kernel: explicit override > Pallas (when enabled and
-    the toolchain can build it) > the lax.scan path."""
-    if dp_fn is None and cfg.use_pallas:
-        from gsalign_tpu.ops import dp_pallas
-        if dp_pallas.hw_ok():
-            dp_fn = dp_pallas.make_hybrid_dp_fn()
-    return dp_fn
-
-
 def plan_alignments(blocks: List[Block], qry_chars: np.ndarray,
                     ref_chars: np.ndarray, ref_codes=None, qry_codes=None):
     """Classify every pair of every block (seeds / pure indels / direct
@@ -207,9 +197,7 @@ def generate_alignments(blocks: List[Block], qry_chars: np.ndarray,
                                                     ref_chars)
     ops_list = []
     if dp_jobs:
-        dp_fn = select_dp_fn(cfg, dp_fn)
-        kwargs = {} if dp_fn is None else {"dp_fn": dp_fn}
         ops_list = dp_ops.align_fragments(
             ref_frags, qry_frags, bucket_sizes=cfg.dp_buckets,
-            batch_cells=cfg.dp_batch_cells, mesh=mesh, **kwargs)
+            batch_cells=cfg.dp_batch_cells, dp_fn=dp_fn, mesh=mesh)
     finish_alignments(blocks, dp_jobs, ops_list, qry_chars, ref_chars)

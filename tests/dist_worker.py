@@ -6,7 +6,6 @@ import os
 import sys
 
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
-os.environ.setdefault("GSALIGN_PLATFORM", "cpu")
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 

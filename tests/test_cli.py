@@ -14,7 +14,6 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def run_cli(args, cwd):
     env = dict(os.environ)
     env["JAX_PLATFORMS"] = "cpu"
-    env["GSALIGN_PLATFORM"] = "cpu"
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
     return subprocess.run([sys.executable, "-m", "gsalign_tpu.cli"] + args,
                           cwd=cwd, env=env, capture_output=True, text=True,

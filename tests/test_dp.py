@@ -121,38 +121,14 @@ def test_pack2bit_roundtrip():
     assert np.array_equal(dp_ops._unpack2bit_host(packed, 64), ops)
 
 
-def test_pallas_big_matches_scan_interpret():
-    # HBM-staged two-call kernel (dp_pallas.dp_align_batch_pallas_big)
-    # vs the lax.scan path at L=512, interpret mode (~15 s)
-    from gsalign_tpu.ops.dp_pallas import dp_align_batch_pallas_big
-    rng = np.random.default_rng(3)
-    L, B = 512, 3
-    q = np.full((B, L), 4, np.int32)
-    t_ = np.full((B, L), 4, np.int32)
-    ql = np.zeros(B, np.int32)
-    tl = np.zeros(B, np.int32)
-    for i in range(B):
-        n = int(rng.integers(400, L + 1))
-        base = rng.integers(0, 4, n)
-        t = base.copy()
-        for _ in range(10):
-            p = int(rng.integers(0, len(t)))
-            op = rng.integers(0, 3)
-            if op == 0:
-                t[p] = (t[p] + 1) % 4
-            elif op == 1 and len(t) > 20:
-                t = np.delete(t, p)
-            elif len(t) < L:
-                t = np.insert(t, p, rng.integers(0, 4))
-        q[i, :n] = base
-        ql[i] = n
-        t_[i, :len(t)] = t
-        tl[i] = len(t)
-    args = (jnp.asarray(q), jnp.asarray(t_), jnp.asarray(ql),
-            jnp.asarray(tl))
-    ref = np.asarray(dp_ops.dp_align_batch(*args, L))
-    got = np.asarray(dp_align_batch_pallas_big(*args, L, interpret=True))
-    for i in range(B):
-        a = ref[i][ref[i] != dp_ops.OP_PAD]
-        b = got[i][got[i] != dp_ops.OP_PAD]
-        assert np.array_equal(a, b), f"lane {i}"
+@pytest.mark.parametrize("L", [64, 128, 512])
+def test_dp_bucket_width_matches_scalar_reference(L):
+    """Related problems filling a bucket of width L (as chip_smoke.py
+    checks them on the card) give the scalar reference's op codes."""
+    from chip_smoke import dp_batch, dp_ops_string
+    q, t, ql, tl = dp_batch(L, L // 2, 2, np.random.default_rng(L))
+    ops = np.asarray(dp_ops.dp_align_batch(
+        jnp.asarray(q), jnp.asarray(t), jnp.asarray(ql), jnp.asarray(tl), L))
+    for i in range(2):
+        assert dp_ops_string(ops[i]) == "".join(ksw_ref_ops(
+            q[i, :ql[i]].tolist(), t[i, :tl[i]].tolist())), f"problem {i}"

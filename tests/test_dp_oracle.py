@@ -2,8 +2,7 @@
 
 Fixtures were produced by compiling the reference's ksw2_alignment.cpp into
 an oracle binary and recording aligned rows for 120 fixed cases (random,
-related-with-edits, and N-containing pairs). The device DP (both the
-lax.scan path and, if it compiles here, the Pallas kernel) must reproduce
+related-with-edits, and N-containing pairs). The device DP must reproduce
 every aligned row byte-for-byte — tie-breaking included.
 """
 
@@ -60,46 +59,4 @@ def test_dp_matches_reference_ksw2_oracle():
     cases, outs = load_cases()
     rows = run_batch(cases, dp_ops.dp_align_batch, 256)
     for i, ((e1, e2), (g1, g2)) in enumerate(zip(outs, rows)):
-        assert g1 == e1 and g2 == e2, f"case {i}"
-
-
-def test_hybrid_dp_falls_back_when_pallas_build_fails(monkeypatch):
-    """A Pallas build failure on one bucket must degrade to the lax.scan
-    path (op-identical), not crash the pipeline: hw_ok() only probes
-    L=128, so larger buckets can fail independently (4x VMEM cube)."""
-    from gsalign_tpu.ops import dp_pallas
-
-    calls = []
-
-    def boom(*a, **k):
-        calls.append(1)
-        raise RuntimeError("synthetic Mosaic build failure")
-
-    monkeypatch.setattr(dp_pallas, "dp_align_batch_pallas", boom)
-    monkeypatch.setattr(dp_pallas, "_BAD_L", set())
-    fn = dp_pallas.make_hybrid_dp_fn()
-    cases, outs = load_cases()
-    keep = [i for i, (s1, s2) in enumerate(cases)
-            if max(len(s1), len(s2)) <= 64][:8]
-    assert len(keep) >= 4
-    rows = run_batch([cases[i] for i in keep], fn, 64)
-    for i, (g1, g2) in zip(keep, rows):
-        e1, e2 = outs[i]
-        assert g1 == e1 and g2 == e2, f"case {i}"
-    assert calls == [1]          # tried Pallas once, then pinned to scan
-    assert 64 in dp_pallas._BAD_L
-    rows2 = run_batch([cases[i] for i in keep], fn, 64)
-    assert rows2 == rows and calls == [1]
-
-
-def test_pallas_dp_matches_oracle_interpret():
-    from gsalign_tpu.ops.dp_pallas import MAX_L, make_dp_fn
-    cases, outs = load_cases()
-    keep = [i for i, (s1, s2) in enumerate(cases)
-            if max(len(s1), len(s2)) <= 128][:24]
-    rows = run_batch([cases[i] for i in keep], make_dp_fn(interpret=True),
-                     128)
-    assert len(keep) >= 8
-    for i, (g1, g2) in zip(keep, rows):
-        e1, e2 = outs[i]
         assert g1 == e1 and g2 == e2, f"case {i}"

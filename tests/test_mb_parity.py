@@ -67,7 +67,6 @@ def test_mb_scale_byte_parity(tmp_path):
     # ours, via the CLI like a user would (CPU platform)
     env = dict(os.environ)
     env["JAX_PLATFORMS"] = "cpu"
-    env["GSALIGN_PLATFORM"] = "cpu"
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
     my_out = os.path.join(d, "my_out")
     r = subprocess.run(

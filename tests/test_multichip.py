@@ -37,9 +37,8 @@ def test_sharded_seeding_matches_unsharded(setup):
 
 def test_sharded_seeding_direct_sa_parity(monkeypatch):
     """Direct-mode indexes resolve occurrences from the standalone SA plane
-    with a plain per-lane gather ("xla", the measured-fastest mode — XLA
-    TPU gather cost is per-index, not table-size); mesh runs shard the
-    lanes per device and must produce the identical seed set."""
+    with a plain per-lane gather ("xla", the default mode); mesh runs shard
+    the lanes per device and must produce the identical seed set."""
     from gsalign_tpu.ops import seeding as seeding_mod
     jax.clear_caches()
     rng = np.random.default_rng(21)

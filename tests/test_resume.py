@@ -23,7 +23,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def _env():
     env = dict(os.environ)
-    env["GSALIGN_PLATFORM"] = "cpu"
+    env["JAX_PLATFORMS"] = "cpu"
     env["PYTHONPATH"] = REPO
     env.pop("XLA_FLAGS", None)
     return env

@@ -19,7 +19,7 @@ def test_run3gb_driver_smoke(tmp_path):
         [sys.executable, os.path.join(REPO, "tools", "run_3gb.py"),
          "--len", "2000000", "--slice-len", "100000", "--out", str(out)],
         capture_output=True, text=True, timeout=600,
-        env={**os.environ, "GSALIGN_PLATFORM": "cpu"})
+        env={**os.environ, "JAX_PLATFORMS": "cpu"})
     assert r.returncode == 0, r.stderr[-2000:]
     with open(out / "result.json") as fh:
         res = json.load(fh)

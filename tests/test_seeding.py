@@ -121,14 +121,13 @@ def test_seeding_poisoned_segments_match_naive(slack, n_segments):
 
 
 @pytest.mark.parametrize("gather_k", [8, 64])
-@pytest.mark.parametrize("sa_mode", ["pallas_interp", "xlak"])
+@pytest.mark.parametrize("sa_mode", ["xlak"])
 def test_seeding_split_sa_pallas_matches_naive(monkeypatch, gather_k,
                                                sa_mode):
-    """Non-default direct-mode SA resolution paths (Pallas masked gather in
-    interpreter mode on CPU; K-compacted xlak): seed sets must match the
-    naive scan, including when the per-iteration slot budget K is tiny so
-    lanes entering direct mode overflow the compaction and take the
-    stall-retry path."""
+    """The non-default direct-mode SA resolution path (K-compacted xlak):
+    seed sets must match the naive scan, including when the per-iteration
+    slot budget K is tiny so lanes entering direct mode overflow the
+    compaction and take the stall-retry path."""
     from gsalign_tpu.ops import seeding as seeding_mod
     monkeypatch.setenv("GSALIGN_SA_MODE", sa_mode)
     monkeypatch.setattr(seeding_mod, "_SA_GATHER_K", gather_k)

@@ -1,9 +1,9 @@
-"""Beyond-HBM ICI index sharding (docs/SCALING_3GB.md item 1): the big
+"""Beyond-HBM index sharding (docs/SCALING_3GB.md item 1): the big
 table rows (t3 + sampled SA) sharded across the 8-device CPU mesh, lanes
 replicated — seeds and full pipeline outputs must be byte-identical to the
 single-device run. This is the device story for the 3 Gb config, whose
-wide tables (~19.4 GB t3 + ~6.2 GB SA at 6.2 G rows) exceed one v5e's
-16 GB HBM but fit across >= 4 chips."""
+wide tables come to ~19.4 GB t3 + ~6.2 GB SA at 6.2 G rows; sharding
+their rows is the path for indexes beyond one card's memory."""
 
 import dataclasses
 

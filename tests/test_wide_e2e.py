@@ -5,7 +5,7 @@ whole pipeline.
 
 Gated behind GSALIGN_BIG=1: the build alone is ~6 min and tens of GB of
 RAM. Run manually: GSALIGN_BIG=1 python -m pytest tests/test_wide_e2e.py -s
-Results are recorded in BASELINE.md.
+Its last recorded run is in docs/SCALING_3GB.md (item 4).
 """
 
 import os

@@ -1,4 +1,10 @@
-"""Stage-level wall-clock profile of the alignment pipeline (run on TPU)."""
+"""Stage-level wall-clock profile of the alignment pipeline.
+
+Usage:  python tools/profile_pipeline.py [data_dir]
+data_dir holds ref.fa and qry.fa (an index is built beside them on first
+use); it defaults to bench.py's 12 Mb pair, .bench/yeast_12mb. Runs on
+the default JAX platform; set JAX_PLATFORMS=cpu to profile the host-only
+path."""
 import os, sys
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import sys, time
@@ -19,7 +25,9 @@ from gsalign_tpu.ops import dp as dp_ops
 from gsalign_tpu.pipeline.output import write_maf
 from gsalign_tpu.pipeline.variants import VariantCollector, identify_variants, write_vcf
 
-prefix = sys.argv[1] if len(sys.argv) > 1 else '/tmp/gsalign_bench'
+prefix = sys.argv[1] if len(sys.argv) > 1 else os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+    '.bench', 'yeast_12mb')
 if index_loadable(f'{prefix}/ref_idx'):
     fm = load_index(f'{prefix}/ref_idx')
 else:
@@ -73,12 +81,9 @@ def run(report=False):
                                                qry_codes=qc)
         ops_list = []
         if jobs:
-            dp_fn = gen_mod.select_dp_fn(cfg)
-            kw = {} if dp_fn is None else {"dp_fn": dp_fn}
             ops_list = dp_ops.align_fragments(rf, qf,
                                               bucket_sizes=cfg.dp_buckets,
-                                              batch_cells=cfg.dp_batch_cells,
-                                              **kw)
+                                              batch_cells=cfg.dp_batch_cells)
         gen_mod.finish_alignments(blocks, jobs, ops_list, qry, ref_chars)
         t0 = mark('gen', t0)
         n = 0

@@ -2,10 +2,10 @@
 regime) end-to-end: build the ~6.2 G-row WIDE index on the host, then run
 the row-sharded-index pipeline over real query slices on an 8-device CPU
 mesh — the at-scale demonstration of the reference's 64-bit `bwtint_t`
-regime (/root/reference/src/BWT_Index/bwt.h:36-40; plan:
+regime (reference src/BWT_Index/bwt.h:36-40; plan:
 docs/SCALING_3GB.md).
 
-Usage:  python tools/run_3gb.py [--len 3100000000] [--out /tmp/run3gb]
+Usage:  python tools/run_3gb.py [--len 3100000000] [--out .bench/run3gb]
 Writes {out}/result.json (build wall, SA-IS wall, peak RSS, align wall,
 ANI, alignments, variant counts, int64-coordinate evidence) and the usual
 MAF/VCF outputs. Runtime ~1-2 h, peak RSS ~70-90 GB — run alone.
@@ -19,7 +19,6 @@ import sys
 import time
 
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
-os.environ.setdefault("GSALIGN_PLATFORM", "cpu")
 os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "")
                            + " --xla_force_host_platform_device_count=8")
 
@@ -34,7 +33,9 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--len", type=int, default=3_100_000_000,
                     dest="total_len")
-    ap.add_argument("--out", default="/tmp/run3gb")
+    ap.add_argument("--out", default=os.path.join(
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+        ".bench", "run3gb"))
     ap.add_argument("--slice-len", type=int, default=8_000_000)
     args = ap.parse_args()
     os.makedirs(args.out, exist_ok=True)
@@ -42,7 +43,6 @@ def main():
     import numpy as np
 
     import jax
-    jax.config.update("jax_platforms", "cpu")
     import gsalign_tpu  # noqa: F401  (enables x64)
     from gsalign_tpu.genome.packing import Genome
     from gsalign_tpu.index import fmindex as fmindex_mod
